@@ -1,4 +1,4 @@
-// sift_io: native data-loading runtime for the TPU SIFT framework.
+// sift_io: native data-loading runtime for the SIFT framework.
 //
 // Equivalent capability to the reference's C++ host runtime pieces — the
 // host image container (/root/reference/sift_cuda/types/HostImage.hh),
@@ -7,7 +7,7 @@
 // dependency-free C++17 shared library: PGM/PPM decoding, RGB->grayscale
 // conversion, bilinear resize, and a multithreaded prefetching frame queue
 // that overlaps disk IO + decode with device compute.  Bound to Python via
-// ctypes (sift_tpu/io/native.py).
+// ctypes (sift_jax/io/native.py).
 //
 // Build: make -C native   (produces libsift_io.so)
 

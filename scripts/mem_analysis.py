@@ -12,7 +12,7 @@ import sys
 
 sys.path.insert(0, ".")
 
-from sift_tpu.perf.cache import enable_compilation_cache
+from sift_jax.perf.cache import enable_compilation_cache
 
 enable_compilation_cache()
 
@@ -29,9 +29,9 @@ def main(argv=None):
     import jax
     import jax.numpy as jnp
 
-    from sift_tpu.config import SiftConfig
-    from sift_tpu.core.types import build_plan
-    from sift_tpu.pipeline.detector import build_detect_fn
+    from sift_jax.config import SiftConfig
+    from sift_jax.core.types import build_plan
+    from sift_jax.pipeline.detector import build_detect_fn
 
     for s in args.sizes:
         w, h = map(int, s.split("x"))

@@ -30,18 +30,18 @@ def main():
     outdir = sys.argv[4]
     die_after_chunk = int(sys.argv[5])
 
-    from sift_tpu.parallel.multihost import (global_mesh, initialize,
+    from sift_jax.parallel.multihost import (global_mesh, initialize,
                                              warmup_collectives)
     initialize(f"127.0.0.1:{port}", nproc, pid)
     warmup_collectives()
 
-    from sift_tpu.perf.cache import enable_compilation_cache
+    from sift_jax.perf.cache import enable_compilation_cache
     enable_compilation_cache()
 
     from jax.experimental import multihost_utils
 
-    from sift_tpu.parallel.dba import make_lm_stepper
-    from sift_tpu.perf.checkpoint import load_ba_state, save_ba_state
+    from sift_jax.parallel.dba import make_lm_stepper
+    from sift_jax.perf.checkpoint import load_ba_state, save_ba_state
 
     sys.path.insert(0, os.path.join(os.path.dirname(__file__)))
     from test_ba import synthetic_ba

@@ -14,9 +14,9 @@ import numpy as np
 
 
 def det_frames(b, h, w):
-    # Textured frames (count-gated kernels make noise an almost-empty
-    # workload — perf/benchimg.py), distinct seed per keyframe.
-    from sift_tpu.perf.benchimg import bench_image
+    # Textured frames (noise would be an almost-empty workload —
+    # perf/benchimg.py), distinct seed per keyframe.
+    from sift_jax.perf.benchimg import bench_image
     return np.stack([bench_image(h, w, seed=i)
                      for i in range(b)]).astype(np.float32)
 
@@ -32,7 +32,7 @@ def main():
     pid, nproc, port = int(sys.argv[1]), int(sys.argv[2]), int(sys.argv[3])
     outdir = sys.argv[4]
 
-    from sift_tpu.parallel.multihost import (allgather, global_mesh,
+    from sift_jax.parallel.multihost import (allgather, global_mesh,
                                              initialize, shard_from_local,
                                              warmup_collectives)
     initialize(f"127.0.0.1:{port}", nproc, pid)
@@ -40,13 +40,13 @@ def main():
     assert jax.device_count() == 4 * nproc
     warmup_collectives()
 
-    from sift_tpu.perf.cache import enable_compilation_cache
+    from sift_jax.perf.cache import enable_compilation_cache
     enable_compilation_cache()
 
-    from sift_tpu.config import SiftConfig
-    from sift_tpu.core.types import build_plan
-    from sift_tpu.parallel.batched import make_sharded_pipeline
-    from sift_tpu.parallel.dba import make_distributed_lm
+    from sift_jax.config import SiftConfig
+    from sift_jax.core.types import build_plan
+    from sift_jax.parallel.batched import make_sharded_pipeline
+    from sift_jax.parallel.dba import make_distributed_lm
 
     # --- keyframe-sharded detect + sequential match over the global mesh
     cfg = SiftConfig(width=752, height=480, num_features=512)

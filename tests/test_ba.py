@@ -2,61 +2,10 @@
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 
-from sift_tpu.geometry import se3
-from sift_tpu.geometry.ba import (BAProblem, lm_optimize, lm_step,
-                                  _mean_cost)
-
-
-def synthetic_ba(seed=0, n_cams=6, n_pts=120, noise_px=0.0,
-                 perturb=0.02):
-    """Cameras on an arc looking at a point cloud; observations = exact
-    projections + noise; initial estimate = ground truth perturbed."""
-    rng = np.random.default_rng(seed)
-    fx = fy = 500.0
-    cx, cy = 320.0, 240.0
-    pts = rng.uniform([-2, -2, 6], [2, 2, 12], (n_pts, 3))
-
-    rots, trs = [], []
-    for i in range(n_cams):
-        w = np.array([0.0, 0.25 * (i / max(n_cams - 1, 1) - 0.5), 0.0])
-        r = np.asarray(se3.so3_exp(jnp.asarray(w)))
-        t = np.array([-0.8 * i / max(n_cams - 1, 1) + 0.4, 0.0, 0.0])
-        rots.append(r)
-        trs.append(t)
-    rots, trs = np.stack(rots), np.stack(trs)
-
-    cam_idx, pt_idx, uvs = [], [], []
-    for c in range(n_cams):
-        pc = pts @ rots[c].T + trs[c]
-        uv = np.stack([pc[:, 0] / pc[:, 2] * fx + cx,
-                       pc[:, 1] / pc[:, 2] * fy + cy], -1)
-        cam_idx += [c] * n_pts
-        pt_idx += list(range(n_pts))
-        uvs.append(uv + rng.normal(0, noise_px, uv.shape))
-    uv = np.concatenate(uvs)
-
-    # Perturb all but camera 0 (the gauge anchor) and all points.
-    rots_i = rots.copy()
-    trs_i = trs.copy()
-    for c in range(1, n_cams):
-        dw = rng.normal(0, perturb, 3)
-        rots_i[c] = np.asarray(se3.so3_exp(jnp.asarray(dw))) @ rots[c]
-        trs_i[c] = trs[c] + rng.normal(0, perturb, 3)
-    pts_i = pts + rng.normal(0, perturb, pts.shape)
-
-    prob = BAProblem(
-        rotations=jnp.asarray(rots_i, jnp.float32),
-        translations=jnp.asarray(trs_i, jnp.float32),
-        points=jnp.asarray(pts_i, jnp.float32),
-        cam_idx=jnp.asarray(cam_idx, jnp.int32),
-        pt_idx=jnp.asarray(pt_idx, jnp.int32),
-        uv=jnp.asarray(uv, jnp.float32),
-        valid=jnp.ones(len(cam_idx), bool),
-        fx=jnp.float32(fx), fy=jnp.float32(fy),
-        cx=jnp.float32(cx), cy=jnp.float32(cy))
-    return prob, rots, trs, pts
+from sift_jax.geometry import se3
+from sift_jax.geometry.ba import lm_optimize, lm_step, _mean_cost
+from sift_jax.perf.scenes import synthetic_ba
 
 
 def test_ba_converges_noiseless():
@@ -112,7 +61,7 @@ def test_cg_schur_matches_dense_f64():
     agree to ~1e-10.  In f32 both are conditioning-limited and LM's
     accept/reject absorbs the difference (gated separately by the
     convergence tests)."""
-    from sift_tpu.geometry.ba import solve_schur_cg
+    from sift_jax.geometry.ba import solve_schur_cg
 
     prob, *_ = synthetic_ba(seed=0, n_cams=5, n_pts=96)
     jax.config.update("jax_enable_x64", True)

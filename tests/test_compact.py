@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sift_tpu.ops.compact import mask_compact, stream_compact, topk_compact
+from sift_jax.ops.compact import mask_compact, stream_compact, topk_compact
 
 
 def _ref_compact(mask, cap):

@@ -4,9 +4,9 @@ import numpy as np
 import jax
 import pytest
 
-from sift_tpu.geometry.ba import lm_optimize
-from sift_tpu.parallel.batched import make_mesh
-from sift_tpu.parallel.dba import make_distributed_lm
+from sift_jax.geometry.ba import lm_optimize
+from sift_jax.parallel.batched import make_mesh
+from sift_jax.parallel.dba import make_distributed_lm
 from tests.test_ba import synthetic_ba
 
 
@@ -54,7 +54,7 @@ def synthetic_ba_chain(seed=0, n_cams=2000, pts_per_cam=2, window=3,
     solver="cg" avoids."""
     import jax.numpy as jnp
 
-    from sift_tpu.geometry.ba import BAProblem
+    from sift_jax.geometry.ba import BAProblem
 
     rng = np.random.default_rng(seed)
     fx = fy = 500.0
@@ -105,7 +105,7 @@ def test_cg_scales_to_2000_cameras():
     points / ~28k observations on the 8-device mesh with solver="cg" —
     nothing dense in C is ever materialized.  Gate: an order of
     magnitude cost reduction in 6 LM iterations."""
-    from sift_tpu.geometry.ba import _mean_cost
+    from sift_jax.geometry.ba import _mean_cost
 
     prob = synthetic_ba_chain(n_cams=2000)
     c0 = float(_mean_cost(prob, prob.rotations, prob.translations,
@@ -121,8 +121,8 @@ def test_stepper_chunked_resume_bit_identical(tmp_path):
     """Elastic-recovery contract: k chunks of n LM iterations through
     make_lm_stepper — with a save/load_ba_state npz round-trip between
     chunks — equals one uninterrupted run bit-for-bit."""
-    from sift_tpu.parallel.dba import make_lm_stepper
-    from sift_tpu.perf.checkpoint import load_ba_state, save_ba_state
+    from sift_jax.parallel.dba import make_lm_stepper
+    from sift_jax.perf.checkpoint import load_ba_state, save_ba_state
 
     prob, *_ = synthetic_ba(seed=3, n_cams=5, n_pts=96)
     mesh = make_mesh(8)

@@ -5,7 +5,7 @@ import cv2
 import numpy as np
 import pytest
 
-from sift_tpu.core import gaussian as g
+from sift_jax.core import gaussian as g
 
 
 def test_kernel_size_formula():

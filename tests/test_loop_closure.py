@@ -3,9 +3,9 @@ closure and reduce accumulated drift."""
 import numpy as np
 import pytest
 
-from sift_tpu.config import SiftConfig
-from sift_tpu.geometry.odometry import MonocularOdometry
-from sift_tpu.geometry.trajectory import ate_rmse
+from sift_jax.config import SiftConfig
+from sift_jax.geometry.odometry import MonocularOdometry
+from sift_jax.geometry.trajectory import ate_rmse
 
 
 W, H = 320, 240

@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sift_tpu.pipeline.matcher import match_brute_force, match_pairs
+from sift_jax.pipeline.matcher import match_brute_force, match_pairs
 
 
 @pytest.fixture(scope="module")
@@ -60,7 +60,7 @@ def test_match_pairs_cross_check(desc_pair):
 
 
 def test_uint8_path_identical_indices(desc_pair):
-    """uint8 storage + bf16 MXU matching must be BIT-IDENTICAL to the f32
+    """uint8 storage + bf16 Gram matching must be BIT-IDENTICAL to the f32
     path: cv2 descriptors are 0..255-integer-valued, every bf16 value and
     product is exact, and sums stay under 2^24 (pipeline/matcher.py)."""
     da, db = desc_pair

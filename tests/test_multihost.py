@@ -54,10 +54,10 @@ def test_two_process_cluster_matches_single_process(tmp_path):
     got = np.load(tmp_path / "multihost_out.npz")
 
     # Single-process reference on the in-test 8-device CPU mesh.
-    from sift_tpu.config import SiftConfig
-    from sift_tpu.core.types import build_plan
-    from sift_tpu.parallel.batched import make_mesh, make_sharded_pipeline
-    from sift_tpu.parallel.dba import make_distributed_lm
+    from sift_jax.config import SiftConfig
+    from sift_jax.core.types import build_plan
+    from sift_jax.parallel.batched import make_mesh, make_sharded_pipeline
+    from sift_jax.parallel.dba import make_distributed_lm
     from tests.multihost_worker import det_frames
     from tests.test_ba import synthetic_ba
 
@@ -132,8 +132,8 @@ def test_worker_loss_resume_from_checkpoint(tmp_path):
 
     # Uninterrupted single-process reference, same chunked schedule.
     from jax.sharding import Mesh  # noqa: F401 (doc only)
-    from sift_tpu.parallel.batched import make_mesh
-    from sift_tpu.parallel.dba import make_lm_stepper
+    from sift_jax.parallel.batched import make_mesh
+    from sift_jax.parallel.dba import make_lm_stepper
     from tests.test_ba import synthetic_ba
 
     prob, *_ = synthetic_ba(seed=3, n_cams=5, n_pts=96)

@@ -6,7 +6,7 @@ import cv2
 import numpy as np
 import pytest
 
-from sift_tpu.io import native
+from sift_jax.io import native
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native lib not built")

@@ -4,9 +4,9 @@ ground truth)."""
 import numpy as np
 import pytest
 
-from sift_tpu.config import SiftConfig
-from sift_tpu.geometry.odometry import MonocularOdometry
-from sift_tpu.geometry.trajectory import ate_rmse
+from sift_jax.config import SiftConfig
+from sift_jax.geometry.odometry import MonocularOdometry
+from sift_jax.geometry.trajectory import ate_rmse
 
 
 W, H = 320, 240
@@ -21,7 +21,7 @@ def _paint_backdrop(r, t, seed, z, ex, ey, _tex_cache={}):
     the ground-truth homography."""
     import cv2
 
-    from sift_tpu.perf.benchimg import bench_image
+    from sift_jax.perf.benchimg import bench_image
 
     tex = _tex_cache.get(seed)
     if tex is None:
@@ -147,7 +147,7 @@ def _paint_corridor_walls(img, r, t, center_z, seed,
     backdrop whose features constrain translation poorly."""
     import cv2
 
-    from sift_tpu.perf.benchimg import bench_image
+    from sift_jax.perf.benchimg import bench_image
 
     tex = _tex_cache.get(seed)
     if tex is None:
@@ -227,8 +227,8 @@ def test_odometry_cli_tum_sequence(tmp_path, capsys):
 
     import cv2
 
-    from sift_tpu.geometry import trajectory as T
-    from sift_tpu.tools import odometry as cli
+    from sift_jax.geometry import trajectory as T
+    from sift_jax.tools import odometry as cli
 
     frames, gt_pos, gt_poses = render_corridor()
     seq = tmp_path / "seq"
@@ -262,7 +262,7 @@ def test_telemetry_stream(sequence, tmp_path):
     and BA timers, serialized as JSONL."""
     import json
 
-    from sift_tpu.perf.telemetry import Telemetry
+    from sift_jax.perf.telemetry import Telemetry
 
     frames, _, _ = sequence
     tel = Telemetry()

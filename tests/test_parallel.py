@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sift_tpu.config import SiftConfig
-from sift_tpu.core.types import build_plan
-from sift_tpu.parallel.batched import (batched_detect_fn, make_mesh,
+from sift_jax.config import SiftConfig
+from sift_jax.core.types import build_plan
+from sift_jax.parallel.batched import (batched_detect_fn, make_mesh,
                                        make_sharded_pipeline,
                                        sequential_match)
 
@@ -36,7 +36,7 @@ def test_eight_virtual_devices():
 def test_batched_matches_single(small_plan, frames):
     batched = jax.jit(batched_detect_fn(small_plan))
     res_b = batched(jnp.asarray(frames[:2]))
-    from sift_tpu.pipeline.detector import build_detect_fn
+    from sift_jax.pipeline.detector import build_detect_fn
 
     single = jax.jit(build_detect_fn(small_plan))
     r0 = single(jnp.asarray(frames[0]))
@@ -79,7 +79,7 @@ def test_scale_bench_cli(capsys):
     chips; here we gate the machinery)."""
     import json
 
-    from sift_tpu.tools import scale_bench
+    from sift_jax.tools import scale_bench
 
     scale_bench.main(["--width", "64", "--height", "64",
                       "--num-features", "128", "--frames-per-device", "1",

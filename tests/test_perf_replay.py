@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from sift_tpu.config import SiftConfig
-from sift_tpu.perf.checkpoint import capture_golden, load_golden
-from sift_tpu.perf.replay import Replayer
+from sift_jax.config import SiftConfig
+from sift_jax.perf.checkpoint import capture_golden, load_golden
+from sift_jax.perf.replay import Replayer
 
 
 @pytest.fixture(scope="module")
@@ -50,7 +50,7 @@ def test_oracle_verification(tmp_path):
     (perf/oracle.py; tools/perf.py --oracle)."""
     from tests.conftest import synthetic_image
 
-    from sift_tpu.perf.oracle import capture_oracle, has_oracle, \
+    from sift_jax.perf.oracle import capture_oracle, has_oracle, \
         verify_oracle
 
     img = synthetic_image(height=240, width=320, seed=1, n_blobs=40)

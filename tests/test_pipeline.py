@@ -4,8 +4,8 @@ import cv2
 import numpy as np
 import pytest
 
-from sift_tpu.config import SiftConfig
-from sift_tpu.pipeline.detector import SiftDetector
+from sift_jax.config import SiftConfig
+from sift_jax.pipeline.detector import SiftDetector
 
 
 @pytest.fixture(scope="module", params=["discs", "textured", "photo"])
@@ -159,8 +159,8 @@ def test_reference_quirk_modes(test_image):
     orientation histograms (interface/Detector.cu:489), continuous x512
     quantization (SiftOps.cu:617-622), and bilinear round-half octave
     downsampling (image_func/Resize.cu:26-63)."""
-    from sift_tpu.pipeline.detector import build_detect_fn
-    from sift_tpu.core.types import build_plan
+    from sift_jax.pipeline.detector import build_detect_fn
+    from sift_jax.core.types import build_plan
     import jax
 
     h, w = test_image.shape

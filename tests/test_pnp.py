@@ -2,8 +2,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from sift_tpu.geometry import se3
-from sift_tpu.geometry.pnp import pnp_gn
+from sift_jax.geometry import se3
+from sift_jax.geometry.pnp import pnp_gn
 
 
 def _scene(seed=0, n=80, outliers=0, noise_px=0.0):

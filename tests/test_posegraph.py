@@ -2,8 +2,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from sift_tpu.geometry import se3
-from sift_tpu.geometry.posegraph import (IncrementalPoseGraph, PoseGraph,
+from sift_jax.geometry import se3
+from sift_jax.geometry.posegraph import (IncrementalPoseGraph, PoseGraph,
                                          edge_residuals, optimize)
 
 

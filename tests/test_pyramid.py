@@ -5,10 +5,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sift_tpu.config import SiftConfig
-from sift_tpu.core.types import build_plan
-from sift_tpu.core import gaussian as g
-from sift_tpu.ops.pyramid import dog_pyramid, gaussian_pyramid
+from sift_jax.config import SiftConfig
+from sift_jax.core.types import build_plan
+from sift_jax.core import gaussian as g
+from sift_jax.ops.pyramid import dog_pyramid, gaussian_pyramid
 
 
 def _opencv_pyramid(img, cfg: SiftConfig):
@@ -89,9 +89,9 @@ def test_padded_tiled_pyramid_matches_dense(test_image):
     import jax.numpy as jnp
     import numpy as np
 
-    from sift_tpu.config import SiftConfig
-    from sift_tpu.core.types import build_plan
-    from sift_tpu.ops.pyramid import (gaussian_pyramid,
+    from sift_jax.config import SiftConfig
+    from sift_jax.core.types import build_plan
+    from sift_jax.ops.pyramid import (gaussian_pyramid,
                                       gaussian_pyramid_padded,
                                       padded_content_views)
 

@@ -24,7 +24,7 @@ def image_files(tmp_path_factory):
 
 
 def _run(image_files, capsys, extra=()):
-    from sift_tpu.tools import reconstruct as cli
+    from sift_jax.tools import reconstruct as cli
 
     cli.main(list(image_files) + ["--fx", str(FX),
                                   "--num-features", "800"] + list(extra))

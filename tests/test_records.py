@@ -1,23 +1,24 @@
-"""Plane-layout record-field parity (ops/records.py +
-kernels/fused_detect.py, interpret mode).
+"""Plane-layout record-field parity (ops/records.py).
 
-The production TPU path computes DoG + extrema + Newton records in ONE
-Pallas pass per octave.  Gates: (a) the kernel's record field equals
-the jnp reference layout on the valid interior, (b) candidates off the
-flags peak bit equal ops/peaks.find_candidates, (c) the plane-layout
-walk equals the stacked-record walk the replay/parity layer uses.
+The pipeline computes DoG + extrema + Newton records in one pass per
+octave.  Gates: (a) the record pass on the padded pyramid layout equals
+records_jnp on natural-shape octaves, (b) candidates off the flags peak
+bit equal ops/peaks.find_candidates, (c) the plane-layout walk equals
+the stacked-record walk the replay/parity layer uses.
 """
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from sift_tpu.config import SIFT_IMG_BORDER, SiftConfig
-from sift_tpu.core.types import build_plan
-from sift_tpu.ops.peaks import find_candidates
-from sift_tpu.ops.pyramid import dog_pyramid, gaussian_pyramid
-from sift_tpu.ops.records import (candidates_from_records,
-                                  detect_records, records_jnp,
+from sift_jax.config import SIFT_IMG_BORDER, SiftConfig
+from sift_jax.core.types import build_plan
+from sift_jax.ops.peaks import find_candidates
+from sift_jax.ops.pyramid import (HALO, dog_pyramid, gaussian_pyramid,
+                                  gaussian_pyramid_padded)
+from sift_jax.ops.records import (candidates_from_records,
+                                  detect_records_padded, records_jnp,
                                   walk_records_all)
-from sift_tpu.ops.refine_dense import refine_keypoints_dense_all
+from sift_jax.ops.refine_dense import refine_keypoints_dense_all
 
 
 def _gauss(test_image, cfg):
@@ -25,45 +26,46 @@ def _gauss(test_image, cfg):
     return plan, gaussian_pyramid(plan, jnp.asarray(test_image))
 
 
-def test_pallas_records_match_jnp(test_image):
+@pytest.mark.parametrize("octave", [0, 1])
+def test_padded_records_match_natural(test_image, octave):
+    """The pipeline's record pass reads the padded pyramid layout
+    (gaussian_pyramid_padded, content at rows [HALO, HALO+h), zeros
+    around it); it must equal records_jnp on the natural-shape octave of
+    the dense-operator pyramid, up to the two pyramids' f32 rounding."""
     h, w = test_image.shape
     cfg = SiftConfig(width=w, height=h)
-    _, gauss = _gauss(test_image, cfg)
-    for o in range(2):
-        ref = records_jnp(gauss[o], cfg)
-        fus = detect_records(gauss[o], cfg, "pallas_interpret")
-        assert fus.values.shape[0] == ref.values.shape[0]
-        ho, wo = ref.h, ref.w
-        a = np.asarray(ref.values[:, :, 1:ho - 1, 1:wo - 1],
-                       np.float64).astype(np.int64)
-        b = np.asarray(fus.values[:, :, 1:ho - 1, 1:wo - 1],
-                       np.float64).astype(np.int64)
-        # All five decision bits of A (conv, div, edge, peak,
-        # contrast_ok) must agree exactly — same f32 expressions in
-        # both impls.
-        np.testing.assert_array_equal(a[0] % 32, b[0] % 32,
-                                      err_msg=f"octave {o} flag bits")
-        # The rounded-step payloads and the B/C quantized payloads sit
-        # one round() away from raw f32 values: Cramer-ratio
-        # cancellation noise between the two impls can flip a
-        # quantization step on rare ill-conditioned pixels (measured:
-        # ~1e-4 of pixels, always by exactly one quantum).
-        n = a[0].size
-        assert (a[0] != b[0]).sum() <= max(3, n // 100_000)
-        assert (a[1] != b[1]).sum() <= max(30, n // 5_000)
-        assert (a[2] != b[2]).sum() <= max(80, n // 2_000)
-        # On CONV pixels (the only places the walk consumes B/C as
-        # values) any difference must be a single quantization step.
-        # Non-conv pixels include near-singular Hessians where Cramer
-        # cancellation amplifies f32 noise by orders of magnitude —
-        # bounded in count above, unconstrained in size.
-        conv = (a[0] % 2).astype(bool)
-        for ch, quanta in ((1, (1, 2047, 2048, 2049)),
-                           (2, (1, 1023, 1024, 1025))):
-            d = np.abs(np.where(conv, a[ch] - b[ch], 0))
-            bad = d[d > 0]
-            assert np.isin(bad, quanta).all() or bad.size == 0, \
-                f"octave {o} ch {ch}: non-unit quant diffs on conv"
+    plan, gauss = _gauss(test_image, cfg)
+    gp = np.asarray(gaussian_pyramid_padded(plan, jnp.asarray(test_image))
+                    [octave])
+    op = plan.octaves[octave]
+    content = gp[:, HALO:HALO + op.height, :op.width]
+    np.testing.assert_allclose(content, np.asarray(gauss[octave]),
+                               atol=2e-4)
+    rim = gp.copy()
+    rim[:, HALO:HALO + op.height, :op.width] = 0.0
+    assert not rim.any()                            # zeros around it
+
+    got = detect_records_padded(jnp.asarray(gp), op.height, op.width, cfg)
+    ref = records_jnp(gauss[octave], cfg)
+    assert got.values.shape == ref.values.shape
+    assert (got.h, got.w) == (ref.h, ref.w)
+    a = np.asarray(ref.values[:, :, 1:ref.h - 1, 1:ref.w - 1],
+                   np.float64).astype(np.int64)
+    b = np.asarray(got.values[:, :, 1:ref.h - 1, 1:ref.w - 1],
+                   np.float64).astype(np.int64)
+    # The peak bit (the candidate set) agrees exactly; the other decision
+    # bits (conv, div, edge, contrast) may flip only on the rare pixels
+    # whose f32 expressions sit at a threshold (measured: 4 of 55932 in
+    # octave 1).
+    np.testing.assert_array_equal((a[0] >> 3) & 1, (b[0] >> 3) & 1)
+    assert ((a[0] % 32) != (b[0] % 32)).sum() <= max(3, a[0].size // 5_000)
+    # Where both converge, the sub-pixel payloads B/C differ by at most
+    # one quantization step of one of their fields.
+    conv = ((a[0] & b[0]) % 2).astype(bool)
+    for ch, quanta in ((1, (1, 2047, 2048, 2049)),
+                       (2, (1, 1023, 1024, 1025))):
+        d = np.abs(np.where(conv, a[ch] - b[ch], 0))
+        assert np.isin(d[d > 0], quanta).all(), f"channel {ch}"
 
 
 def test_candidates_match_find_candidates(test_image):

@@ -3,8 +3,8 @@ results exactly, including the saturation fallback."""
 import numpy as np
 import pytest
 
-from sift_tpu.config import SiftConfig
-from sift_tpu.pipeline.detector import SiftDetector
+from sift_jax.config import SiftConfig
+from sift_jax.pipeline.detector import SiftDetector
 
 
 @pytest.fixture(scope="module")

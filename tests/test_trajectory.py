@@ -3,8 +3,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sift_tpu.geometry import se3
-from sift_tpu.geometry.trajectory import (associate_timestamps, ate_rmse,
+from sift_jax.geometry import se3
+from sift_jax.geometry.trajectory import (associate_timestamps, ate_rmse,
                                           positions_from_rt,
                                           read_kitti_trajectory,
                                           read_tum_trajectory, rpe,

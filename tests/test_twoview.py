@@ -4,27 +4,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from sift_tpu.geometry import se3
-from sift_tpu.geometry.twoview import (eight_point, pixels_to_normalized,
+from sift_jax.geometry import se3
+from sift_jax.geometry.twoview import (eight_point, pixels_to_normalized,
                                        ransac_essential, sampson_error,
                                        triangulate)
-
-
-def _synthetic_scene(seed=0, n=200, outlier_frac=0.0):
-    """Random 3D points seen by two cameras with known relative pose."""
-    rng = np.random.default_rng(seed)
-    pts = rng.uniform([-2, -2, 4], [2, 2, 10], (n, 3))
-    w = np.array([0.05, -0.12, 0.08])
-    r = np.asarray(se3.so3_exp(jnp.asarray(w)))
-    t = np.array([0.5, -0.1, 0.05])
-    p1 = pts[:, :2] / pts[:, 2:]
-    pc2 = pts @ r.T + t
-    p2 = pc2[:, :2] / pc2[:, 2:]
-    n_out = int(outlier_frac * n)
-    if n_out:
-        p2[:n_out] = rng.uniform(-0.5, 0.5, (n_out, 2))
-    return (jnp.asarray(p1, jnp.float32), jnp.asarray(p2, jnp.float32),
-            r, t, pts, n_out)
+from sift_jax.perf.scenes import two_view_scene as _synthetic_scene
 
 
 def test_so3_exp_log_roundtrip():
